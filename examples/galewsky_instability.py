@@ -19,8 +19,8 @@ sharp jet faster than the instability grows (u_max 80 -> 51 over 6 days,
 no roll-up): this test genuinely needs the ~0.5 deg resolution its
 authors prescribe.
 
-Precision note: this example forces float64 (on TPU that is emulated
-but works).  At f32-compensated the run is stable and reaches the same
+Precision note: this example forces float64 (slow on the GPU, but it
+works).  At f32-compensated the run is stable and reaches the same
 saturated roll-up, but the bf16 noise floor seeds the unstable modes
 ~5 orders above f64 roundoff, so the growth phase completes by day ~5
 (measured, docs/RESULTS.md) — use f64 when the growth rate itself is

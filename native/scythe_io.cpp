@@ -2,7 +2,7 @@
 //
 // The reference's I/O layer is compiled CSV machinery (Julia CSV.jl /
 // DataFrames behind src/io.jl and Springsteel's read_physical_grid /
-// write_grid).  This is the TPU-framework's native equivalent: a small C++
+// write_grid).  This is the framework's native equivalent: a small C++
 // parser/formatter for the physical_out_<t>.csv interchange format, exposed
 // to Python via the buffer protocol (no numpy headers needed).
 //

@@ -34,7 +34,7 @@ def parse_args(argv=None):
         "--dtype",
         choices=["f32", "f64"],
         default="f32",
-        help="working precision (f64 enables jax x64 mode; slow on TPU)",
+        help="working precision (f64 enables jax x64 mode; slow on the GPU)",
     )
     p.add_argument("--platform", default=None, help="force a JAX platform (e.g. cpu)")
     p.add_argument(

@@ -1,6 +1,6 @@
-"""scythe-tpu: a TPU-native semi-spectral atmospheric dynamical core.
+"""scythe-tpu: a semi-spectral atmospheric dynamical core in JAX.
 
-A ground-up JAX/XLA/Pallas reimagining of the capabilities of the reference
+A ground-up JAX/XLA reimagining of the capabilities of the reference
 Julia core (mmbell/Scythe.jl): mixed cubic-B-spline / Fourier / Chebyshev
 spectral transforms on R, RL, RZ, RLZ cylindrical grids, an IMEX AB3/AI2*
 stepper with a semi-implicit vertical Helmholtz solve, reference-state moist

@@ -7,7 +7,8 @@ re-architecture expresses the entire step as a pure function of state
 semi-implicit solve -> analysis), `jax.grad` composes through the whole
 integration for free — exact discrete adjoints of the real production
 step, not a hand-derived approximation.  That enables parameter
-estimation, 4D-Var-style calibration, and sensitivity analysis on TPU
+estimation, 4D-Var-style calibration, and sensitivity analysis on the
+accelerator
 (examples/calibrate_drag.py recovers the slab-TCBL drag coefficient from
 synthetic observations by gradient descent).
 

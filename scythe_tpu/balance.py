@@ -104,8 +104,9 @@ def balance_zonal_state(
 
     # The solve needs real float64 (the Newton floor is ~1e-14 on the
     # l_q=0 operators) and tiny matrices — run it on the CPU backend
-    # even inside a TPU session (the bench.py precedent: both backends
-    # coexist; callers must have jax.config enable_x64 on).
+    # even inside an accelerator session (both backends coexist in one
+    # process, as in chip_smoke.py; callers must have jax.config
+    # enable_x64 on).
     devctx = contextlib.nullcontext()
     if on_cpu:
         try:

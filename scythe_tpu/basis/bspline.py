@@ -1,6 +1,6 @@
 """Cubic B-spline radial basis (Ooyama-style spectral finite elements).
 
-This is a from-scratch, TPU-first reconstruction of the radial basis layer of
+This is a from-scratch reconstruction of the radial basis layer of
 the reference semi-spectral core (Scythe.jl / its un-vendored Springsteel
 dependency; API contract pinned at reference call sites, e.g.
 src/spectralGrid.jl:20-45 and src/semiimplicit.jl:301-332).
@@ -27,12 +27,11 @@ Semantics
   spectralGrid.jl:28).
 * The projection ``p = Phi^T W f`` is a *local* quadrature sum over cells,
   which is what makes radial domain decomposition an exact overlap-add of
-  partial projections (the TPU-native analog of the reference halo exchange,
+  partial projections (the analog of the reference halo exchange,
   semiimplicit.jl:320-329).
 
 Everything here is precomputed once per grid in float64 numpy; the runtime
-transform path applies the resulting dense operators as (batched) matmuls on
-the MXU.
+transform path applies the resulting dense operators as (batched) matmuls.
 """
 
 from __future__ import annotations

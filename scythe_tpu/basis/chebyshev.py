@@ -1,4 +1,4 @@
-"""Chebyshev vertical column engine (DCT-based), TPU-first.
+"""Chebyshev vertical column engine (DCT-based).
 
 Reconstruction of the reference's `Chebyshev1D` column machinery (API pinned
 at call sites: CBtransform!/CAtransform!/CItransform!/CIxtransform/
@@ -15,7 +15,7 @@ Semantics
   reference where e.g. surface drag is applied at the *first mish point*
   (src/shallowWaterModels.jl:469-483).
 * Analysis (CB) is the DCT-II; we precompute it as a dense [nz, nz] matrix
-  (batched matmul on the MXU beats an FFT at these sizes, nz <= O(100)).
+  (one batched matmul over all columns at these sizes, nz <= O(100)).
 * CA applies the 2/3-rule dealias truncation: coefficients k >= b_zDim are
   zeroed (reference: ``b_zDim = min(zDim, floor((2 zDim - 1)/3) + 1)``,
   spectralGrid.jl:36) plus optional boundary constraints (gammaBC).

@@ -1,19 +1,19 @@
-"""Real Fourier azimuthal rings, TPU-first.
+"""Real Fourier azimuthal rings.
 
 The reference (via its un-vendored Springsteel dependency) represents the
 azimuthal direction of RL/RLZ polar grids with real Fourier harmonics whose
 per-ring resolution grows with radius [inferred; SURVEY.md 2.4].  A ragged
-per-ring layout is hostile to XLA's static shapes, so the TPU-native design
+per-ring layout is hostile to XLA's static shapes, so this design
 uses a *uniform* number of azimuthal points ``nl`` for every ring together
 with a per-ring spectral mask: ring i keeps only wavenumbers
 ``k <= kmax_i ~ pi * r_i / dr`` so the resolved azimuthal arc length matches
 the radial resolution everywhere and the polar axis stays regular.
 
 Transforms are precomputed dense real-DFT matrices applied as matmuls
-rather than FFTs: at ring sizes of O(10^2-10^3) the [nl, nl] matmul runs on
-the MXU, fuses with the adjacent radial/vertical operator contractions, and
-avoids complex arithmetic entirely (also: FFT is not implemented on some
-TPU runtimes).  Coefficient layout for even nl:
+rather than FFTs: at ring sizes of O(10^2-10^3) the [nl, nl] matmul is one
+GEMM beside the adjacent radial/vertical operator contractions and avoids
+complex arithmetic entirely (cuFFT against it on the GPU is unmeasured,
+ROADMAP).  Coefficient layout for even nl:
     [mean, cos(1..nl/2), sin(1..nl/2-1)]  (nl real coefficients).
 
 Azimuthal derivative slots are with respect to the angle lambda itself

@@ -4,12 +4,11 @@ The dense [nl, nl] real-DFT matmul (fourier.py) costs O(nl) flops per
 point and O(nl^2) operator memory.  This module factors the transform
 Cooley-Tukey style into two much smaller GEMM stages plus an elementwise
 twiddle, cutting the azimuthal flops to O(n1+n2) per point while keeping
-everything on the MXU (no FFT primitive — unavailable on some TPU
-runtimes — and no dynamic shapes).  Measured on v5e the transform is
-HBM-bandwidth bound, so the flop savings are only marginal at moderate
-nl (docs/RESULTS.md round-2 table); the mode auto-enables for nl > 2048,
-where the dense operator constants themselves become impractical
-(create_grid auto policy).
+everything GEMMs (no FFT primitive and no dynamic shapes).  The transform
+is memory-bandwidth bound, so the flop savings are only marginal at
+moderate nl (docs/RESULTS.md); the mode auto-enables for nl > 2048, where
+the dense operator constants themselves become impractical (create_grid
+auto policy, unmeasured on the GPU).
 
 Math (decimation in frequency, nl = n1 * n2, both even):
     k = k2 + n2*k1,   l = l1 + n1*l2

@@ -2,7 +2,7 @@
 geometries (R / RL / RZ / RLZ) plus the beyond-reference XYZ Cartesian
 box and SL / SLZ spherical shells.
 
-TPU-native reconstruction of the reference grid layer (un-vendored
+Reconstruction of the reference grid layer (un-vendored
 Springsteel; API contract at src/spectralGrid.jl:63-94 `createGrid` and the
 transform call sites in src/semiimplicit.jl:301-332).  Design:
 
@@ -19,19 +19,21 @@ transform call sites in src/semiimplicit.jl:301-332).  Design:
 * For radial sharding, analysis factors into a *local* quadrature projection
   (``project``) plus a small replicated solve (``solve_spectral``), so a
   sharded step only needs one psum of the [b_rDim, ...] projection array —
-  the TPU-native analog of the reference halo overlap-add + shared
-  spectral array (semiimplicit.jl:272-285).
+  the analog of the reference halo overlap-add + shared spectral array
+  (semiimplicit.jl:272-285).
 
-Matmul numerics ("compensated" mode, the TPU default for float32 states):
-the TPU MXU multiplies in bfloat16, and at default precision a month of
-research debugging says spectral dynamics diverge (0.4%% operand rounding
-per transform).  XLA's high/highest multi-pass lowering is ~10x slower end
-to end here, so this layer implements bf16_3x *by construction*: every
-operator O is stored as the stack [O_hi, O_lo, O_hi] (O_hi = bf16(O),
-O_lo = bf16(O - O_hi)) and each activation x is stacked [x_hi, x_hi, x_lo];
-a single widened bf16 GEMM with f32 accumulation then computes
-O_hi x_hi + O_lo x_hi + O_hi x_lo — float32-grade accuracy (~1e-6
-relative, dropping only the O_lo x_lo term) at full MXU rate.
+Matmul numerics.  Spectral dynamics are sensitive to operand rounding in
+the transform GEMMs: plain bfloat16 operands (~2^-8) sent the production
+two-layer TC to NaN within ~1200 steps (docs/NUMERICS.md), and TF32
+(~2^-11, what an f32 GEMM at DEFAULT precision may run as on a GPU) is in
+the same class.  So every plain contraction passes an explicit
+``Grid.precision`` (``create_grid`` sets it once; see ``matmul_mode``).
+The alternative "compensated" mode implements bf16_3x by construction:
+every operator O is stored as the stack [O_hi, O_lo, O_hi] (O_hi =
+bf16(O), O_lo = bf16(O - O_hi)) and each activation x is stacked
+[x_hi, x_hi, x_lo]; a single widened bf16 GEMM with f32 accumulation then
+computes O_hi x_hi + O_lo x_hi + O_hi x_lo — float32-grade accuracy (~1e-6
+relative, dropping only the O_lo x_lo term) on bf16 matrix units.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from typing import Any
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from ..basis import bspline, chebyshev, fourier
 from ..config import GridParameters
@@ -65,6 +68,20 @@ GEOMETRIES = ("R", "RL", "RZ", "RLZ", "XYZ", "SL", "SLZ")
 # 2*pi/Ly so the dl/dll slots are true d/dy, d2/dy2), Chebyshev z.  It
 # shares the RLZ structural paths (same array ranks and transform
 # composition); only coordinates and the azimuthal mask/scaling differ.
+
+
+def matmul_mode(backend: str, dtype) -> str:
+    """The ``create_grid(matmul="auto")`` rule: "plain" or "compensated"
+    for a state of ``dtype`` on ``backend``.
+
+    Every backend and dtype gets full-precision plain contractions.  On
+    the GPU this was chosen by measurement on an H100 (PERF.md, "Bring-up
+    findings"): of the candidates that pass every accuracy gate (HIGHEST
+    and TF32x3), neither was faster on both the flagship and the moist
+    core, so the rule keeps HIGHEST; DEFAULT (TF32), BF16x3 and the
+    compensated mode each fail at least one gate."""
+    del backend, dtype
+    return "plain"
 
 
 def _split3(op: np.ndarray) -> jnp.ndarray:
@@ -98,6 +115,8 @@ class Grid:
     project_r: jnp.ndarray  # [nb, rDim] (var-independent local quadrature)
     msolve_r: jnp.ndarray  # [nvars, nb, nb]
     synth_r: jnp.ndarray  # [3, rDim, nb]
+    # precision of every plain contraction (see matmul_mode)
+    precision: Any = lax.Precision.HIGHEST
     synth_r_val: jnp.ndarray | None = None  # [rDim, nb] value row only
     # azimuthal (real-DFT; spectral state holds lambda coefficients)
     nl: int = 0
@@ -136,11 +155,9 @@ class Grid:
         it XLA folds the f32->bf16->f32 round trip to the identity, which
         turns the residual x_lo into zero and silently collapses the scheme
         back to single-pass bf16."""
-        import jax as _jax
-
         if not self.comp:
-            return jnp.einsum(subs, op, x)
-        xh = _jax.lax.optimization_barrier(x.astype(jnp.bfloat16))
+            return jnp.einsum(subs, op, x, precision=self.precision)
+        xh = lax.optimization_barrier(x.astype(jnp.bfloat16))
         xl = (x - xh.astype(x.dtype)).astype(jnp.bfloat16)
         x3 = jnp.stack([xh, xh, xl])
         a, rest = subs.split(",", 1)
@@ -330,7 +347,7 @@ class Grid:
         derivative slots as stacked GEMMs, and the radial synthesis (the
         ~3x b_rDim -> rDim expansion) runs last — so the large physical-size
         tensors are produced exactly once each, not carried through every
-        stage (HBM traffic, not FLOPs, bounds this path on TPU)."""
+        stage (memory traffic, not FLOPs, bounds this path)."""
         g = self._struct
         out: dict[str, jnp.ndarray] = {}
         if g == "R":
@@ -453,18 +470,24 @@ def create_grid(params: GridParameters, dtype=jnp.float32, matmul="auto") -> Gri
     """Build a grid and all of its transform operators (ref createGrid,
     spectralGrid.jl:63-94).
 
-    ``matmul``: "plain" (matmuls in ``dtype``), "compensated" (bf16_3x by
-    construction, see module docstring), or "auto" (compensated on TPU
-    float32, plain elsewhere)."""
+    ``matmul``: "compensated" (bf16_3x by construction, see module
+    docstring), "plain" (matmuls in ``dtype`` at HIGHEST precision),
+    "auto" (``matmul_mode`` for the default backend), or a
+    ``lax.Precision``/``lax.DotAlgorithmPreset`` for plain matmuls at that
+    precision (how tools/precision_sweep.py measures the alternatives)."""
     import jax as _jax
 
     p = params
     if p.geometry not in GEOMETRIES:
         raise ValueError(f"Unknown geometry {p.geometry!r}")
+    precision = lax.Precision.HIGHEST
     if matmul == "auto":
-        comp = _jax.default_backend() == "tpu" and dtype == jnp.float32
-    else:
-        comp = matmul == "compensated"
+        matmul = matmul_mode(_jax.default_backend(), dtype)
+    if not isinstance(matmul, str):
+        precision, matmul = matmul, "plain"
+    if matmul not in ("plain", "compensated"):
+        raise ValueError(f"Unknown matmul mode {matmul!r}")
+    comp = matmul == "compensated"
     prep = _split3 if comp else (lambda op: jnp.asarray(np.asarray(op), dtype))
 
     # --- radial spline operators, per variable BC pair ------------------
@@ -482,6 +505,7 @@ def create_grid(params: GridParameters, dtype=jnp.float32, matmul="auto") -> Gri
         params=p,
         dtype=dtype,
         comp=comp,
+        precision=precision,
         r_mish=r_mish,
         analysis_r=prep(np.stack(an)),
         project_r=prep(proj),
@@ -492,12 +516,11 @@ def create_grid(params: GridParameters, dtype=jnp.float32, matmul="auto") -> Gri
 
     def _pick_factored(p, nl, what):
         """Factored-DFT mode decision for a periodic axis: explicit
-        ``l_factored`` wins; auto enables beyond nl = 2048 — the
-        transform is HBM-bound so factored flop savings measure
-        neutral-to-slower below that (docs/RESULTS.md), while above it
-        the dense [nl, nl] operator constants exceed this runtime's
-        compile-payload limit — when an even x even split of nl exists
-        (falls back to dense otherwise)."""
+        ``l_factored`` wins; auto enables beyond nl = 2048 when an even x
+        even split of nl exists (falls back to dense otherwise).  The
+        threshold was set for another runtime's limit on the size of the
+        dense [nl, nl] operator constants; it is unmeasured on the GPU,
+        where cuFFT is the alternative to both (ROADMAP)."""
         from ..basis import fourier_factored as ff
 
         factored = getattr(p, "l_factored", None)

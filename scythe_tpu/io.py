@@ -19,10 +19,30 @@ import os
 
 import numpy as np
 
-try:  # optional native accelerator
-    import scythe_native_io as _nio  # type: ignore
-except Exception:  # pragma: no cover - fallback path
-    _nio = None
+# `make native` builds the extension here (native/setup.py build_ext --inplace)
+NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native"
+)
+
+
+def load_native(directory: str = NATIVE_DIR):
+    """The native CSV extension built in ``directory``, or None when it has
+    not been built there (hosts without a compiler keep the numpy path)."""
+    import glob
+    import importlib.util
+
+    for path in sorted(glob.glob(os.path.join(directory, "scythe_native_io*.so"))):
+        spec = importlib.util.spec_from_file_location("scythe_native_io", path)
+        mod = importlib.util.module_from_spec(spec)
+        try:
+            spec.loader.exec_module(mod)
+        except ImportError:  # built for another interpreter
+            continue
+        return mod
+    return None
+
+
+_nio = load_native()
 
 
 def _read_csv(path: str) -> tuple[list[str], np.ndarray]:

@@ -1,6 +1,6 @@
-"""Radial domain decomposition over a TPU device mesh.
+"""Radial domain decomposition over a device mesh.
 
-TPU-native replacement for the reference's tile/halo runtime
+Replacement for the reference's tile/halo runtime
 (src/semiimplicit.jl:126-332).  The mapping (SURVEY.md 2.8):
 
 * reference radial tiles (one per Distributed worker)  ->  a 1-D
@@ -20,7 +20,8 @@ TPU-native replacement for the reference's tile/halo runtime
   reference never decomposes lambda or z either).
 
 Per-step communication = one psum of ``[nvars, b_rDim(, nl)(, nz)]`` — a
-few hundred KB at flagship sizes, riding ICI.
+few hundred KB at flagship sizes, over the device interconnect (NVLink
+between the GPUs of one host).
 """
 
 from __future__ import annotations
@@ -535,7 +536,7 @@ def integrate_sharded(
 def initialize_sharded(model, mesh: Mesh, dtype=None, method="psum", matmul="auto"):
     """Sharded analog of model.initialize: build grid/context/state and
     place the state according to the mesh.  ``matmul`` forwards to
-    create_grid (tests force "compensated" off-TPU)."""
+    create_grid (tests use it to force "compensated")."""
     from .. import io as sio
     from ..grids.base import create_grid
     from ..model import default_dtype

@@ -7,7 +7,7 @@ Reconstruction of the reference scheme (Durran & Blossey 2012 AI2*-AB3):
   (ref semiimplicit_adjustment, src/semiimplicit.jl:521-597): solves a
   per-column Helmholtz problem for w in Chebyshev space with a
   prefactorized matrix; here the solve is a precomputed dense inverse
-  applied as one batched matmul over all columns (MXU-friendly).
+  applied as one batched matmul over all columns.
 
 State is a pytree carried through `lax.scan`; the step index selects the
 startup ramp via `lax.switch` (compiler-friendly, no Python branching).
@@ -34,10 +34,9 @@ class ModelState(NamedTuple):
     full [nvars, *spatial] or the SLIM 2-row layout [[w, xi], *spatial]
     (``initial_state(..., imp_rows=2)``): the AI2* corrector is the
     only consumer of the implicit history and reads exactly those two
-    rows (semiimplicit.jl:543-566), and inside ``lax.scan`` the carried
-    history tensors dominate step cost on the 3-D moist core —
-    measured ~770 us/step of residual carry shuffle at full width
-    (tools/probe_scan_carry.py, round 4).  ``model.build_step``
+    rows (semiimplicit.jl:543-566), and inside ``lax.scan`` every carried
+    history tensor costs copy traffic each step
+    (tools/probe_scan_carry.py).  ``model.build_step``
     branches on the (static) leading dim.  ``t`` is the 1-based index
     of the *next* step to be taken.
     """
@@ -138,29 +137,14 @@ class SemiImplicitOps(NamedTuple):
     dsynth: jnp.ndarray  # [nz, nz] coeff -> d/dz
     pxi_bar: jnp.ndarray  # scalar, or [nz] profile in the variable mode
     ts: float
-    use_pallas: bool = False  # fused VMEM-resident kernel (TPU only)
 
 
-def build_semiimplicit_ops(
-    nz, zmin, zmax, bdim, pxi_bar, ts, dtype, use_pallas: bool | None = None
-) -> SemiImplicitOps:
+def build_semiimplicit_ops(nz, zmin, zmax, bdim, pxi_bar, ts, dtype) -> SemiImplicitOps:
     length = zmax - zmin
-    if use_pallas and np.ndim(pxi_bar) > 0:
-        raise ValueError(
-            "the fused Pallas column solve supports only the "
-            "constant-coefficient mode (scalar pxi); si_mode='variable' "
-            "uses the einsum path"
-        )
     h1 = helmholtz_matrix(nz, length, pxi_bar, 0.5 * ts)
     h = helmholtz_matrix(nz, length, pxi_bar, 1.25 * ts)
     zops = chebyshev.build_ops(nz, zmin, zmax, bdim)
     r0a = zops.constrain @ zops.analysis
-    if use_pallas is None:
-        # measured on real TPU (tools/validate_pallas.py, docs/RESULTS.md):
-        # the einsum path at Precision.HIGHEST is both more accurate and
-        # ~10% faster than the compensated Mosaic kernel at these operator
-        # sizes, so einsum stays the default and the kernel stays opt-in.
-        use_pallas = False
     return SemiImplicitOps(
         hinv_t1=jnp.asarray(np.linalg.inv(h1), dtype),
         hinv=jnp.asarray(np.linalg.inv(h), dtype),
@@ -170,7 +154,6 @@ def build_semiimplicit_ops(
         dsynth=jnp.asarray(zops.dsynth, dtype),
         pxi_bar=jnp.asarray(pxi_bar, dtype),
         ts=ts,
-        use_pallas=bool(use_pallas),
     )
 
 
@@ -235,43 +218,26 @@ def semiimplicit_adjustment(
     )
     hinv = jax.lax.cond(t == 1, lambda: ops.hinv_t1, lambda: ops.hinv)
 
-    if ops.use_pallas:
-        from .ops.pallas_semiimplicit import fused_column_solve
-
-        shape = xi_star.shape
-        w_new, xi_new = fused_column_solve(
-            xi_star.reshape(-1, shape[-1]),
-            w_star.reshape(-1, shape[-1]),
-            ops.col_filter,
-            # d/dz composed with the refit (einsum path applies col_deriv to
-            # the already-refit xi*, which equals this composition)
-            ops.col_deriv,
-            hinv,
-            ops.synth,
-            ops.dsynth,
-            ts_term,
-            ops.pxi_bar,
+    with jax.named_scope("semiimplicit_solve"):
+        # Column refit of xi* and its vertical derivative (z on last axis).
+        # Explicit HIGHEST precision: at DEFAULT an f32 GEMM may run in TF32 on
+        # the GPU (10-bit mantissa), which corrupts the acoustic solve the way
+        # bf16 rounding did (docs/NUMERICS.md); these are small [nz, nz] GEMMs
+        # on a minor share of the step, so full f32 costs little.
+        PREC = jax.lax.Precision.HIGHEST
+        xi_star = jnp.einsum("zk,...k->...z", ops.col_filter, xi_star, precision=PREC)
+        xi_star_z = ts_term * ops.pxi_bar * jnp.einsum(
+            "zk,...k->...z", ops.col_deriv, xi_star, precision=PREC
         )
-        return w_new.reshape(shape), xi_new.reshape(shape)
+        g = xi_star_z - w_star
+        # BC rows: zero the first two entries, drop interior rows 0 and nz-1
+        # (ref: g = [0; 0; g[2:nz-1]])
+        zeros = jnp.zeros(g.shape[:-1] + (2,), g.dtype)
+        g = jnp.concatenate([zeros, g[..., 1:-1]], axis=-1)
 
-    # Column refit of xi* and its vertical derivative (z on last axis).
-    # Explicit HIGHEST precision: TPU default matmul precision is bf16 and
-    # corrupts the acoustic solve (docs/NUMERICS.md); these are small
-    # [nz, nz] GEMMs so the multi-pass cost is negligible.
-    PREC = jax.lax.Precision.HIGHEST
-    xi_star = jnp.einsum("zk,...k->...z", ops.col_filter, xi_star, precision=PREC)
-    xi_star_z = ts_term * ops.pxi_bar * jnp.einsum(
-        "zk,...k->...z", ops.col_deriv, xi_star, precision=PREC
-    )
-    g = xi_star_z - w_star
-    # BC rows: zero the first two entries, drop interior rows 0 and nz-1
-    # (ref: g = [0; 0; g[2:nz-1]])
-    zeros = jnp.zeros(g.shape[:-1] + (2,), g.dtype)
-    g = jnp.concatenate([zeros, g[..., 1:-1]], axis=-1)
-
-    a = jnp.einsum("zk,...k->...z", hinv, g, precision=PREC)
-    w_new = jnp.einsum("zk,...k->...z", ops.synth, a, precision=PREC)
-    xi_new = xi_star - ts_term * jnp.einsum(
-        "zk,...k->...z", ops.dsynth, a, precision=PREC
-    )
-    return w_new, xi_new
+        a = jnp.einsum("zk,...k->...z", hinv, g, precision=PREC)
+        w_new = jnp.einsum("zk,...k->...z", ops.synth, a, precision=PREC)
+        xi_new = xi_star - ts_term * jnp.einsum(
+            "zk,...k->...z", ops.dsynth, a, precision=PREC
+        )
+        return w_new, xi_new

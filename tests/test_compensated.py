@@ -1,7 +1,7 @@
 """Compensated bf16 matmul mode: accuracy vs the plain-f64 transforms.
 
-The mode is built for TPU but is numerically testable anywhere (bf16
-arithmetic is available on CPU)."""
+The mode targets bf16 matrix units but is numerically testable anywhere
+(bf16 arithmetic is available on CPU)."""
 
 import numpy as np
 import jax.numpy as jnp

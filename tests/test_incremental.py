@@ -4,8 +4,8 @@ Round-5 JW06 forensics: the per-step full-state refit is NOT neutral —
 (a) on SL/SLZ (and the polar RL grids) the per-ring dealias mask
 composed with the global latitude spline fit is non-projective (AS != I
 for any k masked inside a spline's support: a perturbed-u roundtrip
-loses 4.7e-2 at f64, and repeated roundtrips keep eroding), and (b) on
-TPU the compensated-bf16 GEMMs add a ~1e-6/step coherent bias that
+loses 4.7e-2 at f64, and repeated roundtrips keep eroding), and (b) in
+compensated mode the bf16 GEMMs add a ~1e-6/step coherent bias that
 drifts the balanced zonal mean (+0.9 K/1000 steps at the polar surface,
 tools/jw06_r5_fititer.py).  The incremental form spec + A(var_np1 -
 S spec) is algebraically identical when AS = I and otherwise strictly

@@ -1,10 +1,28 @@
-"""IO tests: CSV round trips (native extension when built + numpy fallback),
-checkpointing."""
+"""IO tests: CSV round trips (native extension built from native/ + numpy
+fallback), checkpointing."""
+
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 
 import scythe_tpu.io as sio
+
+
+@pytest.fixture(scope="session")
+def native(tmp_path_factory):
+    """The native CSV extension, compiled from native/scythe_io.cpp into a
+    temporary directory (the built .so is never committed)."""
+    out = tmp_path_factory.mktemp("native")
+    subprocess.run(
+        [sys.executable, "setup.py", "-q", "build_ext",
+         "--build-lib", str(out), "--build-temp", str(out / "tmp")],
+        cwd=sio.NATIVE_DIR, check=True, capture_output=True, timeout=300,
+    )
+    mod = sio.load_native(str(out))
+    assert mod is not None, "native extension built but did not load"
+    return mod
 
 
 def test_csv_roundtrip_fallback(tmp_path):
@@ -23,8 +41,8 @@ def test_csv_roundtrip_fallback(tmp_path):
     np.testing.assert_allclose(data, cols, rtol=0, atol=0)
 
 
-@pytest.mark.skipif(sio._nio is None, reason="native extension not built")
-def test_csv_roundtrip_native(tmp_path):
+def test_csv_roundtrip_native(tmp_path, native, monkeypatch):
+    monkeypatch.setattr(sio, "_nio", native)
     path = str(tmp_path / "t.csv")
     rng = np.random.default_rng(0)
     cols = rng.normal(size=(257, 5)) * 10.0 ** rng.integers(-10, 10, size=(257, 5))
@@ -35,8 +53,8 @@ def test_csv_roundtrip_native(tmp_path):
     np.testing.assert_allclose(data, cols, rtol=0, atol=0)  # %.17g is exact
 
 
-@pytest.mark.skipif(sio._nio is None, reason="native extension not built")
-def test_native_matches_fallback(tmp_path):
+def test_native_matches_fallback(tmp_path, native, monkeypatch):
+    monkeypatch.setattr(sio, "_nio", native)
     path = str(tmp_path / "t.csv")
     cols = np.array([[0.1, 2.0], [3.0, 4.0]])
     sio._write_csv(path, ["a", "b"], cols)

@@ -8,7 +8,7 @@ ingredients that make the pole-to-pole 3-D state integrable:
    insulated R1T1 clamp was a non-converging ~0.5 m/s^2 surface misfit;
 3. options['si_scale'] and the stratopause buoyancy-CFL timestep.
 
-The full 9-day wave run is examples/jw06_baroclinic_slz.py (TPU);
+The full 9-day wave run is examples/jw06_baroclinic_slz.py (device);
 this test keeps a coarse CPU version of the t=0 balance and a short
 stability window in the suite.
 """
@@ -233,7 +233,7 @@ def test_production_bundle_short_window(tmp_path):
     bounded on the perturbed balanced state.  Pins the option WIRING
     (each piece has its own physics test; the device chain validates
     the long run): a regression that silently drops one of these
-    options reproduces a measured multi-day TPU failure mode
+    options reproduces a measured multi-day device failure mode
     (docs/RESULTS.md round-5 JW06 forensic chain)."""
     model = jw.build_model(str(tmp_path), num_cells=12, nl=24, zdim=12,
                            ts=15.0, l_q=0.0, k4=5.0e15, smag=0.21,

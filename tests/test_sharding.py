@@ -214,8 +214,8 @@ def test_mesh_size_must_divide_cells(tmp_path):
 
 @pytest.mark.parametrize("method", ["psum", "halo", "halo-pcr"])
 def test_sharded_matches_single_fastderiv(tmp_path, method):
-    """Compensated + single-pass-bf16-derivative mode (the TPU production
-    default) through the sharded paths: the fast radial operators must be
+    """Compensated + single-pass-bf16-derivative mode (the compensated
+    production bundle) through the sharded paths: the fast radial operators must be
     sliced per shard exactly like the compensated stacks.  f32 sum-order
     noise bounds the agreement (~1e-4 relative here, measured identical
     with deriv_single on and off); a slicing bug would be O(1) or a shape

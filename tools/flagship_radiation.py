@@ -1,4 +1,4 @@
-"""Flagship 24 h Twoway run: outer-boundary treatment comparison (f32 TPU).
+"""Flagship 24 h Twoway run: outer-boundary treatment comparison (f32 device).
 
 Round-2 stabilized the marginal f32 flagship with an outer Rayleigh sponge
 (docs/RESULTS.md).  This compares, back-to-back in one session:

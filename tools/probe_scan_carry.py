@@ -1,7 +1,6 @@
-"""Scan history-carry forensics (round 4, the single largest moist3d
-lever): scan-of-step costs 2884 us/step vs 1459 with a spec-only carry
-— the 4 physical-space multistep histories cost ~1425 us/step to carry
-(measured, perf_moist3d_fine2_r4.log).  Experiments:
+"""Scan history-carry forensics: how much of a moist3d step the four
+physical-space multistep histories cost to carry through lax.scan
+(scan-of-step against a spec-only carry).  Experiments:
 
   E0 baseline  scan of step (the run_loop composition)
   E1 unroll2   scan of step∘step: every carry output is freshly
@@ -88,8 +87,7 @@ def main():
     # NOTE the slope over ns=(20,120) is already per-STEP for every
     # mult (make(n) runs n//mult iterations of a mult-step body = n
     # steps total) — the first version divided by mult AGAIN and
-    # reported a spurious 5.2x for composition; the real effect is
-    # ~-23% (2896 -> 2231 us/step, re-measured).
+    # reported a spurious 5.2x for composition.
     e0 = slope(run_scan(step, 1))
     print(f"E0 scan-of-step          {e0 * 1e6:8.1f} us/step")
 
